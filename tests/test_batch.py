@@ -1,43 +1,12 @@
-"""Batched fixed-iteration TV-L1 (the TPU throughput path) and its
-fused Pallas iteration kernel."""
+"""Batched TV-L1 and pyramidal HS (the throughput path) against the
+single-pair solvers."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from tpuflow.models.batch import tvl1_batched
-from tpuflow.models.tvl1 import _inner_step, tvl1_multiscale
-from tpuflow.ops.tvl1_pallas import tvl1_iterate_pallas
-
-
-def test_fused_iterations_exact():
-    """M fused in-VMEM iterations == M sequential XLA iterations
-    (temporal blocking is exact, not approximate)."""
-    rng = np.random.default_rng(4)
-    B, ny, nx = 2, 52, 300
-    state = jnp.asarray(rng.standard_normal((B, 6, ny, nx)) * 0.5)
-    const = jnp.asarray(np.stack([
-        rng.standard_normal((B, ny, nx)) * 20,
-        rng.standard_normal((B, ny, nx)) * 20,
-        rng.standard_normal((B, ny, nx)) * 5,
-        np.abs(rng.standard_normal((B, ny, nx))) * 400], axis=1))
-    l_t, theta, taut = 0.045, 0.3, 0.25 / 0.3
-    m = 7
-    out, err = tvl1_iterate_pallas(state, const, m, l_t, theta, taut,
-                                   tile=(16, 128))
-    s = [state[:, k] for k in range(6)]
-    c = [const[:, k] for k in range(4)]
-    for it in range(m):
-        if it == m - 1:
-            u1p, u2p = s[0], s[1]
-        s = list(_inner_step(*s, c[0], c[1], c[2], c[3], l_t, theta,
-                             taut)[:6])
-    ref = jnp.stack(s, axis=1)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=1e-12)
-    # the error output is the last iteration's summed squared update
-    ref_err = jnp.sum((s[0] - u1p) ** 2 + (s[1] - u2p) ** 2, axis=(-2, -1))
-    np.testing.assert_allclose(np.asarray(err), np.asarray(ref_err),
-                               rtol=1e-9)
+from tpuflow.models.tvl1 import tvl1_multiscale
 
 
 def test_batched_matches_error_stop(solver_goldens):
@@ -57,18 +26,22 @@ def test_batched_matches_error_stop(solver_goldens):
     np.testing.assert_array_equal(np.asarray(u_b[0]), np.asarray(u_b[1]))
 
 
-def test_batched_pallas_levels():
-    """Exercise the Pallas warp + fused-iteration path (level above the
-    size cutoff) against the gather-based reference path."""
-    rng = np.random.default_rng(9)
-    ny, nx = 128, 192  # above PALLAS_MIN_PIXELS at the finest level
+def _smooth_pair(ny=128, nx=192, seed=9):
+    rng = np.random.default_rng(seed)
     noise = rng.standard_normal((ny, nx))
     fy = np.fft.fftfreq(ny)[:, None]
     fx = np.fft.fftfreq(nx)[None, :]
     base = np.real(np.fft.ifft2(np.fft.fft2(noise)
                                 * np.exp(-(fx ** 2 + fy ** 2) * 800)))
     I0 = 128 + 90 * base / np.abs(base).max()
-    I1 = np.roll(I0, 1, axis=1)
+    return I0, np.roll(I0, 1, axis=1)
+
+
+def test_batched_big_level_matches_exact():
+    """A 128x192 finest level through the batched engine (batched
+    exact gather + per-sample stopping) against the single-pair exact
+    path."""
+    I0, I1 = _smooth_pair()
     u_b, v_b = tvl1_batched(jnp.asarray(I0[None]), jnp.asarray(I1[None]),
                             nscales=3)
     u_r, v_r = tvl1_multiscale(jnp.asarray(I0), jnp.asarray(I1), nscales=3,
@@ -76,41 +49,6 @@ def test_batched_pallas_levels():
     epe = float(np.mean(np.hypot(np.asarray(u_b[0]) - np.asarray(u_r),
                                  np.asarray(v_b[0]) - np.asarray(v_r))))
     assert epe < 0.05, epe
-
-
-def test_hs_fused_sweeps_exact():
-    """M fused 4-color SOR sweeps == M sequential XLA sweeps."""
-    from tpuflow.models.hs_pyramidal import _four_colors, _sor_sweep
-    from tpuflow.ops.hs_pallas import hs_sor_pallas
-
-    rng = np.random.default_rng(6)
-    B, ny, nx = 2, 48, 280
-    u = jnp.asarray(rng.standard_normal((B, ny, nx)) * 0.5)
-    v = jnp.asarray(rng.standard_normal((B, ny, nx)) * 0.5)
-    Au = jnp.asarray(rng.standard_normal((B, ny, nx)) * 10)
-    Av = jnp.asarray(rng.standard_normal((B, ny, nx)) * 10)
-    Du = jnp.asarray(np.abs(rng.standard_normal((B, ny, nx))) * 50 + 49)
-    Dv = jnp.asarray(np.abs(rng.standard_normal((B, ny, nx))) * 50 + 49)
-    D = jnp.asarray(rng.standard_normal((B, ny, nx)) * 5)
-    alpha2 = 49.0
-    m = 3
-    state = jnp.stack([u, v], axis=1)
-    const = jnp.stack([Au, Av, Du, Dv, D], axis=1)
-    out, err = hs_sor_pallas(state, const, m, alpha2, tile=(16, 128))
-
-    colors = _four_colors((ny, nx))
-    uu, vv = u, v
-    for s in range(m):
-        if s == m - 1:
-            up, vp = uu, vv
-        uu, vv, _ = _sor_sweep(uu, vv, Au, Av, Du, Dv, D, alpha2, colors)
-    np.testing.assert_allclose(np.asarray(out[:, 0]), np.asarray(uu),
-                               atol=1e-11)
-    np.testing.assert_allclose(np.asarray(out[:, 1]), np.asarray(vv),
-                               atol=1e-11)
-    ref_err = jnp.sum((uu - up) ** 2 + (vv - vp) ** 2, axis=(-2, -1))
-    np.testing.assert_allclose(np.asarray(err), np.asarray(ref_err),
-                               rtol=1e-9)
 
 
 def test_hs_batched_matches_unbatched(solver_goldens):
@@ -133,8 +71,7 @@ def test_warp_early_exit_equivalence():
     0.05 parity budget vs the strictly reference-faithful all-warps
     schedule (measured ~0.017 on this adversarial constant-shift pair;
     ~0.007 end-to-end vs the reference binary on smooth content).
-    Runs the fused big-level path in interpret mode on CPU (96x128 >=
-    the Pallas threshold)."""
+    """
     rng = np.random.default_rng(3)
     ny, nx = 96, 128
     from scipy.ndimage import gaussian_filter
@@ -149,3 +86,21 @@ def test_warp_early_exit_equivalence():
     epe = float(np.mean(np.hypot(np.asarray(u_e) - np.asarray(u_f),
                                  np.asarray(v_e) - np.asarray(v_f))))
     assert epe < 0.03, epe
+
+
+def test_hs_batched_big_level_vs_exact_f64():
+    """Batched HS at a 128x192 finest level against the single-pair
+    exact float64 path (the reference-faithful warp count)."""
+    from tpuflow.models.batch import hs_pyramidal_batched
+    from tpuflow.models.hs_pyramidal import hs_pyramidal
+
+    I0, I1 = _smooth_pair(seed=4)
+    u_b, v_b = hs_pyramidal_batched(jnp.asarray(I0[None]),
+                                    jnp.asarray(I1[None]), nscales=3,
+                                    warp_early_exit=False)
+    u_r, v_r = hs_pyramidal(jnp.asarray(I0), jnp.asarray(I1), nscales=3,
+                            clamp_scales=False)
+    assert u_b.dtype == jnp.float64
+    epe = float(np.mean(np.hypot(np.asarray(u_b[0]) - np.asarray(u_r),
+                                 np.asarray(v_b[0]) - np.asarray(v_r))))
+    assert epe < 0.05, epe

@@ -64,10 +64,9 @@ def test_recovers_truth(bt_goldens):
 
 
 def test_fast_warp_mode_matches_exact(bt_goldens):
-    """warp_mode="fast" (the TPU routing, r5: per-frame 6-plane warps
-    through the bounded batched kernel / shift path instead of the
-    exact gather) must match the exact gather closely for in-bound
-    flows."""
+    """warp_mode="fast" (per-frame 6-plane warps through the bounded
+    shift path instead of the exact gather) must match the exact gather
+    closely for in-bound flows."""
     g = bt_goldens
     vol = jnp.asarray(g["vol"], dtype=jnp.float32)
     u_e, v_e = brox_temporal(vol, nscales=2, clamp_scales=False,
@@ -77,10 +76,10 @@ def test_fast_warp_mode_matches_exact(bt_goldens):
     assert _epe(u_f, v_f, np.asarray(u_e), np.asarray(v_e)) < 2e-3
 
 
-def test_fast_warp_pallas_route_big_level():
-    """At >= 96x96 the fast mode routes the Pallas batched kernel
-    (interpret mode on CPU); one cheap fixed-sweep outer iteration must
-    agree with the exact gather."""
+def test_fast_warp_route_big_level():
+    """At a 96x128 level the fast mode's shift warp, vmapped over the
+    frame axis, must agree with the exact gather over two cheap
+    fixed-sweep outer iterations."""
     rng = np.random.default_rng(7)
     ny, nx = 96, 128
     base = rng.standard_normal((ny + 8, nx + 8))

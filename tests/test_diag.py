@@ -25,8 +25,11 @@ def _pair(ny=40, nx=56, seed=0):
 
 
 def test_brox_spatial_diag_shapes_and_equivalence():
+    # with_diag instruments the per-level loop; the plain call's
+    # whole-pyramid jit is checked against that loop in
+    # test_whole_pyramid.py
     I1, I2 = _pair()
-    u0, v0 = brox_spatial(I1, I2, nscales=2, outer_iter=3)
+    u0, v0 = brox_spatial(I1, I2, nscales=2, outer_iter=3, _whole=False)
     u, v, diags = brox_spatial(I1, I2, nscales=2, outer_iter=3,
                                with_diag=True)
     np.testing.assert_array_equal(np.asarray(u), np.asarray(u0))
@@ -79,7 +82,7 @@ def test_tvl1occflow_diag(capsys):
 
 def test_robust_expo_diag(capsys):
     I1, I2 = _pair(seed=9)
-    u0, v0 = robust_expo(I1, I2, nscales=2, outer_iter=3)
+    u0, v0 = robust_expo(I1, I2, nscales=2, outer_iter=3, _whole=False)
     u, v, diags = robust_expo(I1, I2, nscales=2, outer_iter=3,
                               with_diag=True, verbose=True)
     np.testing.assert_array_equal(np.asarray(u), np.asarray(u0))

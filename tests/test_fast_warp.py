@@ -1,6 +1,7 @@
-"""Fast warp paths vs the exact gather warp.
+"""The displacement-bounded shift warp (`warp_mode="fast"`) vs the exact
+gather warp.
 
-Both fast paths evaluate the identical 16-tap bicubic for flows within
+The shift warp evaluates the identical 16-tap bicubic for flows within
 the static bound; flows beyond the bound produce 0 (documented)."""
 
 import jax.numpy as jnp
@@ -8,7 +9,6 @@ import numpy as np
 
 from tpuflow.ops import warp_planes
 from tpuflow.ops.interp import warp_planes_shift
-from tpuflow.ops.warp_pallas import warp_planes_pallas
 
 
 def _case(ny=53, nx=77, nplanes=3, amp=2.5, clip=3.0, seed=2):
@@ -38,66 +38,3 @@ def test_shift_warp_out_of_bound_flow_zeroes():
     u = u.at[10, 10].set(25.0)  # exceeds dmax
     b = warp_planes_shift(I, u, v, 3, border_out=True)
     assert float(np.abs(np.asarray(b)[:, 10, 10]).max()) == 0.0
-
-
-def test_pallas_warp_matches_gather():
-    # interpreter mode on the CPU test backend; small tile to exercise
-    # the grid
-    I, u, v = _case(ny=48, nx=130)
-    a = warp_planes(I, u, v, border_out=True)
-    b = warp_planes_pallas(I, u, v, 3, tile=(16, 128))
-    np.testing.assert_allclose(np.asarray(b), np.asarray(a), atol=1e-11)
-
-
-def test_pallas_warp_f32():
-    I, u, v = _case(ny=40, nx=128)
-    I = I.astype(jnp.float32)
-    u = u.astype(jnp.float32)
-    v = v.astype(jnp.float32)
-    a = warp_planes(I, u, v, border_out=True)
-    b = warp_planes_pallas(I, u, v, 3, tile=(8, 128))
-    np.testing.assert_allclose(np.asarray(b), np.asarray(a), rtol=2e-5,
-                               atol=2e-3)
-
-
-def test_bounded_warp_overflow_flag_surfaces():
-    """The fast-only two-window kernel flags tiles whose displacement
-    spread exceeds its coverage; `with_overflow` must surface a nonzero
-    count for 3-cluster content (the silent-degradation class of
-    ADVICE r4) and zero for smooth flows."""
-    from tpuflow.ops.interp import warp_planes_bounded
-
-    ny, nx = 96, 128
-    rng = np.random.default_rng(5)
-    img = jnp.asarray(rng.standard_normal((1, ny, nx)), jnp.float32)
-    # three displacement clusters, spread >> 4*rbud+1 for dmax=8:
-    # thirds of the tile at -8, 0, +8 pixels
-    u = np.zeros((ny, nx), np.float32)
-    u[:, : nx // 3] = -8.0
-    u[:, 2 * nx // 3:] = 8.0
-    zero = jnp.zeros((ny, nx), jnp.float32)
-    _, oflow = warp_planes_bounded(img, jnp.asarray(u), zero, 8,
-                                   with_overflow=True, rbud=1)
-    assert int(oflow) > 0
-    _, oflow_smooth = warp_planes_bounded(img, zero, zero, 8,
-                                          with_overflow=True, rbud=1)
-    assert int(oflow_smooth) == 0
-
-
-def test_batched_stats_surface():
-    """tvl1_batched/hs_pyramidal_batched expose the aggregated
-    warp-degradation count via with_stats (zero for smooth synthetic
-    flows on the CPU small-level path)."""
-    from tpuflow.models.batch import hs_pyramidal_batched, tvl1_batched
-
-    rng = np.random.default_rng(11)
-    I0 = jnp.asarray(rng.standard_normal((1, 40, 56)) * 50 + 128,
-                     jnp.float32)
-    I1 = jnp.roll(I0, 1, axis=-1)
-    u, v, stats = tvl1_batched(I0, I1, nscales=2, with_stats=True)
-    assert int(stats["warp_overflow_tiles"]) == 0
-    assert u.shape == I0.shape
-    u, v, stats = hs_pyramidal_batched(I0, I1, nscales=2, with_stats=True,
-                                       warp_early_exit=False)
-    assert int(stats["warp_overflow_tiles"]) == 0
-    assert v.shape == I0.shape

@@ -9,6 +9,7 @@ tests pin the byte layout so that property survives without needing
 the binary at test time."""
 
 import numpy as np
+import pytest
 
 from tpuflow.io.flo import (read_flo, read_flow, read_juv, write_flo,
                             write_flow, write_juv)
@@ -95,3 +96,94 @@ def test_reference_flo_fixture(tmp_path):
     p = str(tmp_path / "reencode.flo")
     write_flo(p, u, v)
     assert open(p, "rb").read() == raw
+
+
+@pytest.mark.parametrize("kind", ["gray8", "gray16", "rgb8"])
+def test_png_roundtrip_without_imageio(tmp_path, monkeypatch, kind):
+    """PNG goes through the package's own zlib codec: it round-trips
+    with imageio made unimportable, and other formats then fail with an
+    error that names the missing package."""
+    import sys
+
+    from tpuflow.io.image import read_image, read_png, write_image
+
+    monkeypatch.setitem(sys.modules, "imageio", None)
+    monkeypatch.setitem(sys.modules, "imageio.v3", None)
+    rng = np.random.default_rng(len(kind))
+    dtype = np.uint16 if kind == "gray16" else np.uint8
+    shape = (23, 31, 3) if kind == "rgb8" else (23, 31)
+    arr = rng.integers(0, np.iinfo(dtype).max, shape, endpoint=True)
+    arr = arr.astype(dtype)
+    p = str(tmp_path / "a.png")
+    write_image(p, arr)
+    back = read_png(p)
+    assert back.dtype == dtype
+    np.testing.assert_array_equal(back, arr)
+    np.testing.assert_array_equal(read_image(p, gray=False), arr)
+    if arr.ndim == 3:
+        np.testing.assert_allclose(read_image(p), arr.mean(axis=2))
+    with pytest.raises(ImportError, match="imageio"):
+        write_image(str(tmp_path / "a.tif"), arr)
+
+
+def _filter_rows(rows, ftype, bpp):
+    """PNG scanline filter `ftype` (1 Sub, 2 Up, 3 Average, 4 Paeth)
+    applied to (h, stride) uint8 rows, straight from the PNG spec."""
+    out = []
+    prev = [0] * rows.shape[1]
+    for row in rows.tolist():
+        line = [ftype]
+        for i, x in enumerate(row):
+            a = row[i - bpp] if i >= bpp else 0
+            b = prev[i]
+            c = prev[i - bpp] if i >= bpp else 0
+            if ftype == 1:
+                pred = a
+            elif ftype == 2:
+                pred = b
+            elif ftype == 3:
+                pred = (a + b) // 2
+            else:
+                p = a + b - c
+                pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+            line.append((x - pred) % 256)
+        out.append(bytes(line))
+        prev = row
+    return b"".join(out)
+
+
+@pytest.mark.parametrize("kind", ["gray8", "rgb16"])
+@pytest.mark.parametrize("ftype", [1, 2, 3, 4])
+def test_png_reads_filtered_scanlines(tmp_path, ftype, kind):
+    """Encoders filter scanlines (Sub/Up/Average/Paeth); read_png must
+    undo each one, for one-byte and multi-byte pixels."""
+    import struct
+    import zlib
+
+    from tpuflow.io.image import read_png
+
+    rng = np.random.default_rng(ftype)
+    if kind == "gray8":
+        arr, depth, ctype = rng.integers(0, 256, (9, 13)).astype(np.uint8), 8, 0
+        rows, bpp = arr, 1
+    else:
+        arr = rng.integers(0, 65536, (9, 13, 3)).astype(np.uint16)
+        depth, ctype, bpp = 16, 2, 6
+        rows = arr.astype(">u2").reshape(9, -1).view(np.uint8)
+    h, w = arr.shape[:2]
+
+    def chunk(tag, body):
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body)))
+
+    raw = _filter_rows(rows, ftype, bpp)
+    p = tmp_path / "f.png"
+    p.write_bytes(b"\x89PNG\r\n\x1a\n"
+                  + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth,
+                                               ctype, 0, 0, 0))
+                  + chunk(b"IDAT", zlib.compress(raw))
+                  + chunk(b"IEND", b""))
+    back = read_png(str(p))
+    assert back.dtype == arr.dtype
+    np.testing.assert_array_equal(back, arr)

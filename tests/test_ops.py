@@ -122,7 +122,7 @@ def test_normalize_joint(solver_goldens):
 
 
 def test_f32_path_close_to_f64():
-    """The float32 TPU path must track the double oracle closely on
+    """The float32 path must track the double oracle closely on
     well-scaled inputs."""
     rng = np.random.default_rng(0)
     I = rng.standard_normal((40, 56)) * 100.0

@@ -97,3 +97,35 @@ def test_checkpoint_resume_batched(solver_goldens, tmp_path):
     state = load_level_checkpoint(ckpt, 1)
     u_r, v_r = tvl1_batched(I0, I1, resume=(1, state), **kw)
     np.testing.assert_allclose(np.asarray(u_r), np.asarray(u_f), atol=1e-12)
+
+
+def test_cache_honours_jax_env(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, no code sets a cache."""
+    import jax
+
+    from tpuflow.utils import cache
+
+    calls = []
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    monkeypatch.setattr(jax.config, "update",
+                        lambda *a, **k: calls.append(a))
+    assert cache.configure_cache() == str(tmp_path)
+    assert calls == []
+
+
+def test_cache_default_is_checkout_path(monkeypatch):
+    """Without it, the cache is the fixed `<checkout>/.jax_cache`."""
+    import jax
+
+    from tpuflow.utils import cache
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    try:
+        d = cache.configure_cache()
+        assert d == os.path.join(root, ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == d
+        assert os.path.isdir(d)
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

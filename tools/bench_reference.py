@@ -20,8 +20,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from bench import synth_pair
-import imageio.v3 as iio_lib
+from bench import synth_pair, synth_triplet
+from tpuflow.io import write_image
 
 BUILD = os.environ.get("REF_BUILD", "/tmp/refbuild")
 ARTIFACT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -37,15 +37,13 @@ def main():
     with tempfile.TemporaryDirectory() as d:
         p0 = os.path.join(d, "i0.png")
         p1 = os.path.join(d, "i1.png")
-        iio_lib.imwrite(p0, I0.clip(0, 255).astype("uint8"))
-        iio_lib.imwrite(p1, I1.clip(0, 255).astype("uint8"))
+        write_image(p0, I0.clip(0, 255).astype("uint8"))
+        write_image(p1, I1.clip(0, 255).astype("uint8"))
 
-        # third frame for tvl1occflow (same construction as
-        # tools/bench_4k.synth_pair3: backward warp of the base frame)
-        from tools.bench_4k import synth_pair3
-        Im1, _, _ = synth_pair3(436, 1024)
+        # third frame for tvl1occflow: backward warp of the base frame
+        Im1, _, _ = synth_triplet(436, 1024)
         pm1 = os.path.join(d, "im1.png")
-        iio_lib.imwrite(pm1, Im1.clip(0, 255).astype("uint8"))
+        write_image(pm1, Im1.clip(0, 255).astype("uint8"))
 
         # 9-frame drifting sequence for brox_temporal (same drift flow
         # family as the pair; r5 — anchors the all-seven artifact)
@@ -68,7 +66,7 @@ def main():
         fpaths = []
         for k, fr in enumerate(frames):
             fp = os.path.join(d, f"seq{k}.png")
-            iio_lib.imwrite(fp, fr.clip(0, 255).astype("uint8"))
+            write_image(fp, fr.clip(0, 255).astype("uint8"))
             fpaths.append(fp)
         os.makedirs(os.path.join(d, "bt"), exist_ok=True)
 

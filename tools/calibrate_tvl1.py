@@ -30,12 +30,12 @@ OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 
 def run_pair(I0, I1, tmp):
-    import imageio.v2 as imageio
+    from tpuflow.io import write_image
 
     a = os.path.join(tmp, "a.png")
     b = os.path.join(tmp, "b.png")
-    imageio.imwrite(a, np.clip(I0, 0, 255).astype(np.uint8))
-    imageio.imwrite(b, np.clip(I1, 0, 255).astype(np.uint8))
+    write_image(a, np.clip(I0, 0, 255).astype(np.uint8))
+    write_image(b, np.clip(I1, 0, 255).astype(np.uint8))
     p = subprocess.run(
         [BIN, a, b, os.path.join(tmp, "o.flo"),
          "1", "0.25", "0.15", "0.3", "100", "0.5", "5", "0.01", "1"],

@@ -18,11 +18,9 @@ from tpuflow.io import read_image, write_flow
 
 def enable_persistent_cache():
     """CLI runs are one-shot processes: without the persistent
-    compilation cache every invocation would pay the full Mosaic/XLA
-    compile (minutes cold).  Called by each CLI `main()` (NOT at import
-    time, so importing this module has no global side effects); the
-    cache dir is per-user with owner-only permissions — see
-    tpuflow.utils.cache."""
+    compilation cache every invocation would pay the full XLA compile.
+    Called by each CLI `main()` (NOT at import time, so importing this
+    module has no global side effects) — see tpuflow.utils.cache."""
     from tpuflow.utils.cache import configure_cache
 
     configure_cache()

@@ -10,11 +10,10 @@ horn_schunck_pyramidal, src/horn_schunck_pyramidal.cpp:258-370):
   4. solve coarse -> fine; after each scale, bicubic-upsample the flow
      to the next finer size and multiply by 1/zfactor
 
-The TPU design runs the per-scale solver inside one jit per level
-(static shapes; at most `nscales` compilations per input geometry,
-cached across calls), while the scale loop itself is host-side Python —
-the levels have different shapes by construction, and the coarse levels
-are microseconds of work.
+The driver below is plain Python over static level shapes: called
+eagerly it runs one jit per level (the path that serves verbose output
+and checkpoint hooks); called inside a jit it unrolls into ONE program
+for the whole pyramid (the solvers' default plain call).
 """
 
 import jax.numpy as jnp

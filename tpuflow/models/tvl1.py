@@ -1,6 +1,6 @@
 """TV-L1 optical flow (Zach/Pock/Bischof duality, Sanchez et al. impl).
 
-TPU-native re-design of reference src/tvl1flow.cpp:
+Vectorized re-design of reference src/tvl1flow.cpp:
 
   * the per-warp setup (3 warps of I1/I1x/I1y) becomes ONE fused
     3-plane bicubic gather (`warp_planes`) — the index/weight math is
@@ -34,6 +34,7 @@ from tpuflow.ops import (
     forward_gradient,
     warp_planes,
 )
+from tpuflow.ops.interp import warp_planes_shift
 
 MAX_ITERATIONS = 300  # reference src/tvl1flow.cpp:22
 GRAD_IS_ZERO = 1e-10  # reference src/tvl1flow.cpp:24
@@ -107,8 +108,7 @@ def tvl1_scale(I0, I1, u1, u2, tau=DEFAULT_TAU, lam=DEFAULT_LAMBDA,
     def warp_body(carry, _):
         u1, u2, p11, p12, p21, p22 = carry
         if warp_mode == "fast":
-            from tpuflow.ops.interp import warp_planes_bounded
-            I1w, I1wx, I1wy = warp_planes_bounded(planes, u1, u2, dmax)
+            I1w, I1wx, I1wy = warp_planes_shift(planes, u1, u2, dmax)
         else:
             I1w, I1wx, I1wy = warp_planes(planes, u1, u2, border_out=True)
         grad = I1wx * I1wx + I1wy * I1wy
@@ -163,7 +163,7 @@ def tvl1_multiscale(I0, I1, tau=DEFAULT_TAU, lam=DEFAULT_LAMBDA,
                     epsilon=DEFAULT_EPSILON, max_iterations=MAX_ITERATIONS,
                     stop="error", clamp_scales=True, level_callback=None,
                     resume=None, verbose=False, with_diag=False,
-                    warp_mode="auto", max_motion=8):
+                    warp_mode="exact", max_motion=8):
     """Multiscale TV-L1 (reference Dual_TVL1_optic_flow_multiscale,
     src/tvl1flow.cpp:219-328).  Returns (u, v), or (u, v, diags) with
     `with_diag=True` where diags[s] is the per-warp stopping-statistic
@@ -177,43 +177,19 @@ def tvl1_multiscale(I0, I1, tau=DEFAULT_TAU, lam=DEFAULT_LAMBDA,
     (src/tvl1flow.cpp:284-286) and `Warping: %d, Iterations: %d,
     Error: %f` per warp (src/tvl1flow.cpp:184-188).
 
-    `warp_mode` selects the warp implementation: "exact" = the
-    reference's full bicubic gather; "fast" = the displacement-bounded
-    Pallas/shift warp with per-level bound
-    max(3, ceil(max_motion * zfactor**s)) (flows beyond the bound
-    produce 0, the border_out failure class); "auto" (default) = fast
-    on TPU, exact elsewhere (tpuflow.ops.interp.resolve_warp_mode).
+    `warp_mode` selects the warp implementation: "exact" (default) =
+    the reference's full bicubic gather; "fast" = the
+    displacement-bounded shift warp (`warp_planes_shift`) with
+    per-level bound max(3, ceil(max_motion * zfactor**s)) (flows beyond
+    the bound produce 0, the border_out failure class), which GSPMD
+    partitions with tile-local halos (tpuflow.parallel.spatial).
     """
     import math
     import sys
 
-    from tpuflow.ops.interp import resolve_warp_mode
-
-    warp_mode = resolve_warp_mode(warp_mode)
     ny, nx = I0.shape[-2:]
     if clamp_scales:
         nscales = clamp_nscales(nx, ny, zfactor, nscales, use_hypot=True)
-
-    def _multi_device(x):
-        s = getattr(x, "sharding", None)
-        return s is not None and getattr(s, "num_devices", 1) > 1
-
-    if (warp_mode == "fast" and stop == "error" and not verbose
-            and not with_diag and level_callback is None and resume is None
-            and I0.ndim == 2 and not _multi_device(I0)):
-        # plain single-pair fast path (the CLI default): route through
-        # the batched engine at B=1 — same algorithm, same per-sample
-        # in-kernel reference stopping, but the round-4 fused kernels
-        # compile in a fraction of the time of the exact-fallback
-        # planes kernel this path used before (VERDICT r3 item 5)
-        from tpuflow.models.batch import tvl1_batched
-
-        u, v = tvl1_batched(I0[None], I1[None], tau=tau, lam=lam,
-                            theta=theta, nscales=nscales, zfactor=zfactor,
-                            stop="error", warps=warps, epsilon=epsilon,
-                            max_iterations=max_iterations,
-                            max_motion=max_motion)
-        return u[0], v[0]
 
     diag = with_diag or verbose
     diags = [None] * nscales

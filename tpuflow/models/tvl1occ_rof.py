@@ -24,7 +24,7 @@ u = lambda*(f + div p) (:609-635).  The 4x4 pattern above reproduces
 the reference's inner-cell Gauss elimination (:428-453) to machine
 precision (verified by direct comparison).
 
-TPU design: cells are relaxed in RED-BLACK order over the cell
+Design: cells are relaxed in RED-BLACK order over the cell
 checkerboard (the reference sweeps lexicographically).  Same-color
 cells share no edges, so each half-sweep is one batched masked 4x4
 solve over the whole grid — fully vectorized.  Within a cell we relax
@@ -93,10 +93,10 @@ def rof_box_cell_centered(u, f, p1, p2, g, lam, omega=1.25, n_iter=10):
     def _solve4(A, b):
         """Unrolled Gaussian elimination of the per-cell 4x4 systems
         held as sixteen (H, W) planes + four rhs planes — deliberately
-        NOT a batched (H, W, 4, 4) `linalg.solve`: TPU pads a trailing
-        (4, 4) to the (8, 128) register tile, which turns the system
-        tensor into ~64x its logical size (8.5 GB at 1080p — the
-        round-4 worker-crash bug).  No pivoting needed: diagonals are
+        NOT a batched (H, W, 4, 4) `linalg.solve`: sixteen planes keep
+        every step elementwise, so XLA fuses the solve with its
+        neighbours and no small trailing (4, 4) axis is laid out in
+        memory.  No pivoting needed: diagonals are
         -2-alfa <= -2 (diagonally dominant) or exactly 1 (masked
         identity rows)."""
         A = [list(row) for row in A]

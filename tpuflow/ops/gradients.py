@@ -1,8 +1,8 @@
 """Finite-difference stencils (gradients, divergence, 3x3 masks).
 
-TPU-native formulation of the reference's per-pixel loops
+Vectorized formulation of the reference's per-pixel loops
 (reference src/operators.cpp): every stencil is expressed as padded
-shifts so XLA fuses the whole expression into one VPU pass.  Boundary
+shifts so XLA fuses the whole expression into one elementwise pass.  Boundary
 semantics replicate the reference exactly:
 
   * `centered_gradient`  — central differences, one-sided at the borders

@@ -21,7 +21,7 @@ only one any shipped solver uses, and the only one implemented here.
 
 `warp_stack` fuses the warp of N planes (image + derivative planes) that
 share one flow field: the 16 tap indices and cubic weights are computed
-once and reused for every plane — the TPU answer to the reference
+once and reused for every plane — the vectorized answer to the reference
 calling bicubic_interpolation_warp 3-6 times per warp iteration
 (e.g. src/tvl1flow.cpp:94-96).
 """
@@ -150,88 +150,16 @@ def warp_planes(planes, u, v, border_out=True):
     return warp_stack(planes, jj + u, ii + v, border_out)
 
 
-def resolve_warp_mode(mode):
-    """Resolve warp_mode="auto" by backend: the bounded fast path on
-    TPU (where XLA's per-pixel gather is ~260 ms/warp), the exact
-    gather elsewhere (CPU f64 parity/tests).  The TPUFLOW_EXACT_WARP=1
-    environment variable forces the exact gather everywhere."""
-    import os
-
-    if os.environ.get("TPUFLOW_EXACT_WARP"):
-        return "exact"
-    if mode == "auto":
-        import jax
-
-        return "fast" if jax.default_backend() == "tpu" else "exact"
-    return mode
-
-
-def warp_planes_bounded(planes, u, v, dmax, interpret=None,
-                        border_out=True, rbud=None, fast_only=None,
-                        with_overflow=False):
-    """Displacement-bounded fused warp of a (P, H, W) stack: the Pallas
-    VMEM-window kernel on big planes, the XLA shift-select sum on small
-    ones (kernel launch overhead dominates there).  Semantics =
-    `warp_planes(..., border_out=True)` for |u|inf, |v|inf <= dmax;
-    flows beyond the bound produce 0.  border_out=False (tvl1occflow)
-    always takes the shift path, whose static shifts also shard cleanly
-    under GSPMD (the spatial-tiling 4K configs).
-
-    DEFAULT is the kernel's fast_only mode (round 4): no in-kernel
-    exact fallback is compiled (the dmax=8 exact sum alone cost
-    ~90-200 s of Mosaic compile per geometry), at the price of the
-    strict-bound / two-window degradation class — pixels a motion
-    boundary's third displacement cluster leaves uncovered produce 0
-    for that warp (validated: f32 TPU fast path vs f64 CPU exact oracle
-    EPE ~0.008, tools/bench_4k.json).  Accuracy-sensitive callers can
-    restore the exact in-kernel fallback (bit-identical to the shift
-    path for every input, at the Mosaic-compile cost above) with
-    `fast_only=False`, or widen the residual windows with `rbud`;
-    the environment knobs TPUFLOW_WARP_RBUD / TPUFLOW_WARP_EXACT=1
-    override the defaults process-wide.
-
-    `with_overflow=True` additionally returns the number of degraded
-    (two-window-overflowed) tiles as an int32 scalar — 0 on the shift
-    and exact paths."""
-    import os
-
-    from tpuflow.ops.warp_pallas import warp_planes_pallas_batched
-
-    if fast_only is None:
-        fast_only = not os.environ.get("TPUFLOW_WARP_EXACT")
-    if rbud is None:
-        # r5 re-sweep under the double-buffered kernel
-        # (/tmp sweep logged in tools/tpu_exp/r5_warptile.py family):
-        # rbud=2 runs the brox/robust solvers ~19% faster end-to-end
-        # than r4's rbud=3 with the same oracle EPE; rbud=1 buys only
-        # ~4% more and narrows the coverage window (r4's occ experiment
-        # showed degraded constants cost outer-loop iterations on
-        # occlusion-class content)
-        rbud = int(os.environ.get("TPUFLOW_WARP_RBUD", "2"))
-    if border_out and planes.shape[-2] * planes.shape[-1] >= 96 * 96:
-        out, flags = warp_planes_pallas_batched(
-            planes[None], u[None], v[None], dmax, tile=(32, 512),
-            interpret=interpret, rbud=rbud, fast_only=fast_only,
-            with_flags=True)
-        if with_overflow:
-            return out[0], jnp.sum(flags, dtype=jnp.int32)
-        return out[0]
-    out = warp_planes_shift(planes, u, v, dmax, border_out=border_out)
-    if with_overflow:
-        return out, jnp.zeros((), jnp.int32)
-    return out
-
-
 def warp_planes_shift(planes, u, v, dmax, border_out=True):
     """Gather-free bicubic warp for displacement-bounded flows.
 
-    TPU-native fast path: XLA lowers per-pixel gathers to scalar loops
-    (a 3-plane 1024x436 `warp_planes` costs ~260 ms on one chip), so
-    for |u|inf, |v|inf <= dmax this evaluates the same 16-tap bicubic
+    For |u|inf, |v|inf <= dmax this evaluates the same 16-tap bicubic
     as a sum over (2*dmax+4)^2 STATIC shifts with per-pixel one-hot
-    weights -- pure VPU multiply-adds that XLA fuses into one pass
-    (~sub-ms).  Coarse-to-fine drivers bound the per-level flow, so
-    `dmax` follows the pyramid schedule (tpuflow.models.batch).
+    weights: elementwise multiply-adds with no data-dependent indexing,
+    so under GSPMD every tile needs only a halo of width dmax+2 from
+    its neighbours, where the gather would need the whole frame.  This
+    is `warp_mode="fast"`; coarse-to-fine drivers bound the per-level
+    flow as max(3, ceil(max_motion * zfactor**s)).
 
     Semantics match `warp_planes(..., border_out=True)` for in-bound
     flows up to summation order (weights are expanded algebraically
@@ -289,57 +217,34 @@ def warp_planes_shift(planes, u, v, dmax, border_out=True):
             w = jnp.where(m == t, c[t], w)
         return w
 
-    def shift2(a, ky, kx):
-        # a[(i+ky) clamped, (j+kx) clamped]; clamping never triggers for
-        # in-domain pixels (their taps are inside by the `out` rule)
-        ys = jnp.clip(jnp.arange(ny) + ky, 0, ny - 1)
-        xs = jnp.clip(jnp.arange(nx) + kx, 0, nx - 1)
-        return a[:, ys][:, :, xs]
+    offsets = range(-D - 1, D + 3)
+    wxs = {kx: axis_weight(cx, relx, kx) for kx in offsets}
 
-    wxs = {kx: axis_weight(cx, relx, kx) for kx in range(-D - 1, D + 3)}
+    def ky_step(acc, ky):
+        # all planes' taps at row offset ky: planes[(i+ky), (j+kx)],
+        # indices clamped (clamping never triggers for in-domain
+        # pixels: their taps are inside by the `out` rule)
+        wy = axis_weight(cy, rely, ky)
+        sy = planes[:, jnp.clip(jnp.arange(ny) + ky, 0, ny - 1)]
+        for kx in offsets:
+            sxy = sy[:, :, jnp.clip(jnp.arange(nx) + kx, 0, nx - 1)]
+            acc = acc + (wy * wxs[kx])[None] * sxy
+        return acc, None
 
+    acc = jnp.zeros((np_, ny, nx), dtype=dtype)
     if ny * nx >= 512 * 512:
         # large frames (the 1080p/4K configs): the fully unrolled
-        # (2D+4)^2-term graph makes XLA materialize enough shifted
-        # temps to blow HBM at compile time (~36 GB at 1080p, D=8);
-        # sequence the row-offset axis through lax.scan so only one
-        # ky-slab of temps is live at a time — identical accumulation
-        # order (ky outer, kx inner), bounded memory
-        xs_all = jnp.stack([jnp.clip(jnp.arange(nx) + kx, 0, nx - 1)
-                            for kx in range(-D - 1, D + 3)])
-        wx_all = jnp.stack([wxs[kx] for kx in range(-D - 1, D + 3)])
-
-        def ky_step(acc, ky):
-            wy = axis_weight(cy, rely, ky)
-            ys = jnp.clip(jnp.arange(ny) + ky, 0, ny - 1)
-            sy = planes[:, ys]
-            for kxi in range(2 * D + 4):
-                w = wy * wx_all[kxi]
-                sxy = sy[:, :, xs_all[kxi]]
-                acc = acc + w[None] * sxy
-            return acc, None
-
-        acc, _ = jax.lax.scan(
-            ky_step, jnp.zeros((np_, ny, nx), dtype=dtype),
-            jnp.arange(-D - 1, D + 3))
-        if not border_out:
-            return acc
-        zero = jnp.zeros((), dtype=dtype)
-        return jnp.where(out[None], zero, acc)
-
-    wys = {ky: axis_weight(cy, rely, ky) for ky in range(-D - 1, D + 3)}
-
-    acc = [jnp.zeros((ny, nx), dtype=dtype) for _ in range(np_)]
-    for ky, wy in wys.items():
-        for kx, wx in wxs.items():
-            w = wy * wx
-            shifted = shift2(planes, ky, kx)
-            for p in range(np_):
-                acc[p] = acc[p] + w * shifted[p]
+        # (2D+4)^2-term graph can make XLA materialize one shifted temp
+        # per term; sequence the row-offset axis through lax.scan so
+        # only one ky-slab of temps is live at a time — identical
+        # accumulation order (ky outer, kx inner), bounded memory
+        acc, _ = jax.lax.scan(ky_step, acc, jnp.arange(-D - 1, D + 3))
+    else:
+        for ky in offsets:
+            acc, _ = ky_step(acc, ky)
     if not border_out:
-        return jnp.stack(acc)
-    zero = jnp.zeros((), dtype=dtype)
-    return jnp.stack([jnp.where(out, zero, a) for a in acc])
+        return acc
+    return jnp.where(out[None], jnp.zeros((), dtype=dtype), acc)
 
 
 def interpolate_bilinear(img, xx, yy):

@@ -57,10 +57,10 @@ def clamp_nscales(nx, ny, factor, nscales, min_size=16, use_hypot=True):
 def _resample_matrix(n_out, n_in, inv_factor):
     """(n_out, n_in) bicubic resampling matrix for a REGULAR grid.
 
-    TPU-native formulation: grid resampling has row/column-constant tap
-    positions, so the 2D bicubic sample at (j/f, i/f) factorizes into
-    out = A_y @ I @ A_x^T — two small matmuls that run on the MXU
-    instead of a per-pixel gather (which XLA lowers to scalar loops).
+    Grid resampling has row/column-constant tap positions, so the 2D
+    bicubic sample at (j/f, i/f) factorizes into out = A_y @ I @ A_x^T
+    — two small matmuls instead of a per-pixel gather.  They run at
+    Precision.HIGHEST (`_resample`), so no TF32 rounding enters.
     Weights replicate reference bicubic_interpolation_at with
     border_out=False: Keys cell at the truncated anchor, taps clamped
     to the valid range (src/bicubic_interpolation.cpp:153-245; all grid

@@ -7,7 +7,8 @@ multi-host story is the standard JAX recipe (SURVEY.md §5.8):
   1. every process calls `initialize()` (a thin wrapper over
      `jax.distributed.initialize`, no-op when single-process),
   2. a single `Mesh` spans all processes' devices,
-  3. `jit` over sharded arrays inserts ICI/DCN collectives itself.
+  3. `jit` over sharded arrays inserts the collectives itself (NCCL
+     between GPUs).
 
 Because each frame pair's solve is independent (batch data parallelism,
 the throughput axis), the only cross-device traffic in a DP run is the
@@ -29,10 +30,11 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
                **kw):
     """Multi-host init: call once per process before any JAX op.
 
-    A no-op for single-process runs (the common case, and all that this
-    container can exercise).  On a pod slice with launcher-provided
-    environment (TPU_WORKER_HOSTNAMES etc.) plain `initialize()` works;
-    explicit coordinator args cover bare-metal setups.
+    A no-op for single-process runs (the common case: one process
+    drives every GPU of a host).  Multi-process runs pass the
+    coordinator explicitly, e.g. `initialize("localhost:12345", 2, 0)`
+    in process 0 and `initialize("localhost:12345", 2, 1)` in
+    process 1.
     """
     if num_processes in (None, 1) and coordinator_address is None:
         # single-process: nothing to coordinate
@@ -53,7 +55,7 @@ def dp_shard(arrays, mesh, axis="batch"):
 
 
 def _sync(x):
-    return float(jnp.sum(x[0] if isinstance(x, tuple) else x))
+    return jax.block_until_ready(x)
 
 
 def dp_efficiency(step, make_batch, per_device_batch, devices=None,

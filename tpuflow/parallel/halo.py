@@ -2,8 +2,8 @@
 
 Runs inside `jax.shard_map`: each device holds one (h, w) tile of the
 global image; `exchange_1d/2d` pads the tile with `halo` cells fetched
-from ring neighbors via `lax.ppermute` (nearest-neighbor shifts that
-map onto ICI links), while tiles at the global boundary fill their
+from ring neighbors via `lax.ppermute` (nearest-neighbor shifts, which
+XLA lowers to point-to-point collectives between devices), while tiles at the global boundary fill their
 outward halo according to the op's boundary condition:
 
   * "edge"     — replicate the boundary cell (Neumann clamp; matches

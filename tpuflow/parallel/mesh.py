@@ -2,16 +2,18 @@
 
 The reference's only parallelism is OpenMP loop-splitting inside one
 address space (e.g. reference src/tvl1flow.cpp:98).  tpuflow scales
-across chips with a `jax.sharding.Mesh`; the canonical axes are
+across devices with a `jax.sharding.Mesh`; the canonical axes are
 
   * "batch" — data parallel over frame pairs (throughput axis)
   * "y", "x" — spatial tiling of one frame with halo exchange
-    (for resolutions that exceed one chip, e.g. the 4K config)
+    (for resolutions that exceed one device, e.g. the 4K config)
   * "t" — frame axis for the temporal methods (ring halo)
 
 Multi-host runs use the same mesh over all processes' devices after
 `jax.distributed.initialize()` (standard JAX: the mesh spans hosts and
-XLA routes ICI vs DCN collectives automatically).
+XLA inserts the collectives).  The mesh shape follows the algorithm
+alone: the GPUs of one host are joined all to all by NVLink, so no
+axis order is cheaper than another.
 """
 
 import numpy as np

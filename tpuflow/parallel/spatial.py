@@ -10,7 +10,7 @@ over a (y, x) device mesh.  Two lanes exist in tpuflow:
     solvers run on them with `warp_mode="fast"`.  Every op on the hot
     path is then static shifts / elementwise math / separable convs,
     which XLA's SPMD partitioner turns into per-tile compute plus halo
-    `collective-permute`s on ICI automatically — the "annotate
+    `collective-permute`s between devices automatically — the "annotate
     shardings, let XLA insert collectives" recipe (SURVEY.md §5.8).
     The two global ops per scale — joint normalization min/max and
     DF-AUTO's percentile sort (robust_expo) — become all-reduce /

@@ -3,9 +3,9 @@
 The reference couples each flow field only to its two frame neighbors
 (psi5/psi6 terms, src/brox_temporal_mask.cpp:108-133), so the flow
 volume shards cleanly over a "t" mesh axis with a ONE-FIELD halo
-exchanged per SOR half-sweep — a ring `lax.ppermute` over ICI, the same
+exchanged per SOR half-sweep — a ring `lax.ppermute` between devices, the same
 communication shape as ring attention but carrying a stencil slab
-(SURVEY.md §5.7).  Memory per chip drops from O(T·H·W) to O(T/n·H·W),
+(SURVEY.md §5.7).  Memory per device drops from O(T·H·W) to O(T/n·H·W),
 which is the reference's scaling limit
 (src/brox_optic_flow_temporal.cpp:305-340).
 

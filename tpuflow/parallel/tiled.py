@@ -8,7 +8,7 @@ full-image ops (same dtype, same operations — the halo pad reconstructs
 exactly the neighborhood the full-image op sees), which tests assert
 on an 8-device CPU mesh.
 
-Communication pattern: `lax.ppermute` neighbor shifts (ICI-friendly),
+Communication pattern: `lax.ppermute` neighbor shifts (point-to-point),
 one exchange of width-1 halos per stencil application, width-`halo`
 exchange per warp, and `lax.psum` for the scalar convergence error —
 exactly the scaling recipe in SURVEY.md §5.8.

@@ -1,56 +1,41 @@
 """Persistent-compilation-cache configuration (one policy, shared).
 
 CLI runs are one-shot processes: without the persistent compilation
-cache every invocation would pay the full Mosaic/XLA compile (minutes
-cold).  The reference binaries have no analog (ahead-of-time C++
-compilation); this module is the rebuild's equivalent of `make`.
+cache every invocation would pay the full XLA compile.  The reference
+binaries have no analog (ahead-of-time C++ compilation); this module is
+the rebuild's equivalent of `make`.
 
-The default directory is scoped per-user under the system temp dir and
-created with owner-only permissions, so on shared hosts one user cannot
-pre-populate executables that another user's process would deserialize
-and run.  Explicit user configuration always wins:
+Policy:
 
-  * `JAX_COMPILATION_CACHE_DIR` (JAX's own env var) — left untouched;
-  * `TPUFLOW_JAX_CACHE` — used verbatim;
-  * a `jax.config.update("jax_compilation_cache_dir", ...)` made before
-    `configure_cache()` runs — detected and left untouched.
+  * `JAX_COMPILATION_CACHE_DIR` set (JAX's own variable): JAX reads it
+    itself and nothing here touches the cache configuration;
+  * otherwise the cache lives at the fixed path `<checkout>/.jax_cache`
+    (listed in .gitignore).  The path is fixed so that every process
+    started from the same checkout finds the same executables.
 """
 
 import os
-import tempfile
 
 import jax
 
+CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
 
 def default_cache_dir():
-    """Per-user cache path: ``$TMPDIR/tpuflow-jax-cache-<uid>``."""
-    explicit = os.environ.get("TPUFLOW_JAX_CACHE")
-    if explicit:
-        return explicit
-    uid = os.getuid() if hasattr(os, "getuid") else "u"
-    return os.path.join(tempfile.gettempdir(), f"tpuflow-jax-cache-{uid}")
+    """The fixed cache path used when JAX_COMPILATION_CACHE_DIR is unset."""
+    return os.path.join(CHECKOUT, ".jax_cache")
 
 
-def configure_cache(cache_dir=None):
-    """Point JAX's persistent compilation cache at a private directory.
-
-    No-op when the user already configured a cache (env var or
-    programmatic jax.config call).  Returns the directory in use, or
-    None when an explicit JAX_COMPILATION_CACHE_DIR env setting is
-    honored instead.
-    """
-    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
-        return None
-    current = jax.config.jax_compilation_cache_dir
-    if current is not None and "TPUFLOW_JAX_CACHE" not in os.environ:
-        return current  # programmatic user setting: respect it
-    cache_dir = cache_dir or default_cache_dir()
-    os.makedirs(cache_dir, mode=0o700, exist_ok=True)
-    try:
-        if os.stat(cache_dir).st_uid == getattr(os, "getuid", lambda: -1)():
-            os.chmod(cache_dir, 0o700)
-    except OSError:
-        pass
+def configure_cache():
+    """Point JAX's persistent compilation cache at `default_cache_dir()`
+    unless JAX_COMPILATION_CACHE_DIR is set.  Returns the directory in
+    use."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    cache_dir = default_cache_dir()
+    os.makedirs(cache_dir, exist_ok=True)
     jax.config.update("jax_compilation_cache_dir", cache_dir)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
     return cache_dir
